@@ -1,16 +1,19 @@
-"""SPA solver crossover benchmark: host sparse-f64 vs device dense vs
-device matrix-free PCG, across graph sizes, on the current jax backend.
+"""SPA solve times by solver and graph size on the current device: host
+sparse f64 vs device dense vs device matrix-free PCG, each device path in
+f64 and mixed precision, on the noisy-loop benchmark graphs.
 
-Writes the table BASELINE.md cites and that PoseGraphSolver's "auto"
-policy (AUTO_HOST_NODE_LIMIT) is derived from.  Run on the real TPU:
-  python profile_spa.py
+    python profile_spa.py
+
+The host/device crossover it shows is what PoseGraphSolver's "auto" policy
+(AUTO_HOST_NODE_LIMIT) should follow.  Prints the device and the card's
+name and power limit first.
 """
 import time
 
-import numpy as np
-
 from yag_slam_tpu.graphopt.spa import SPA2d
 from yag_slam_tpu.io.benchmark import noisy_loop_pose_graph, populate_spa
+from yag_slam_tpu.utils.card import card_name_and_power_limit
+from yag_slam_tpu.utils.compile_cache import enable_compile_cache
 
 
 def build(n_nodes, solver, precision="mixed"):
@@ -23,10 +26,13 @@ def build(n_nodes, solver, precision="mixed"):
 def main():
     import jax
 
-    print(f"backend: {jax.default_backend()}")
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    print(f"device: {dev.platform} {dev.device_kind}; "
+          f"card: {card_name_and_power_limit()}")
     sizes = [100, 500, 1000, 2000, 4000]
     # (solver, precision) columns: "mixed" = f32 factorization/CG + f64
-    # matrix-free iterative refinement; "f64" = all-emulated-f64 steps
+    # matrix-free iterative refinement; "f64" = f64 steps throughout
     cols = [("host", "f64"), ("dense", "mixed"), ("dense", "f64"),
             ("cg", "mixed"), ("cg", "f64")]
     names = [f"{s}:{p}" if s != "host" else s for s, p in cols]
@@ -37,27 +43,19 @@ def main():
         times = {}
         costs = {}
         for (solver, prec), name in zip(cols, names):
-            # a failing cell (e.g. the dense 3N^2 f64 system OOMs HBM at
-            # n>=2000 — XLA pads the emulated-f64 matrix ~57x) must not
-            # kill the remaining rows
-            try:
-                build(n, solver, prec).compute(100, 1e-4, True, 1e-9, 200)
-                best = float("inf")
-                for _ in range(3):
-                    spa = build(n, solver, prec)
-                    t0 = time.time()
-                    c = spa.compute(100, 1e-4, True, 1e-9, 200)
-                    best = min(best, time.time() - t0)
-                times[name] = best * 1e3
-                costs[name] = c
-            except Exception as e:
-                print(f"  [{name} @ {n}: {type(e).__name__} "
-                      f"{str(e).splitlines()[0][:90]}]")
-                times[name] = float("nan")
+            build(n, solver, prec).compute(100, 1e-4, True, 1e-9, 200)
+            best = float("inf")
+            for _ in range(3):
+                spa = build(n, solver, prec)
+                t0 = time.perf_counter()
+                c = spa.compute(100, 1e-4, True, 1e-9, 200)
+                best = min(best, time.perf_counter() - t0)
+            times[name] = best * 1e3
+            costs[name] = c
         rows[n] = times
         print(f"{n:>6} | " + " | ".join(
             f"{times[s]:>11.1f}" for s in names)
-            + f"   chi2={costs.get('host', float('nan')):.4g}")
+            + f"   chi2={costs['host']:.4g}")
     return rows
 
 

@@ -1,16 +1,13 @@
-"""Scaling-efficiency harness: sharded loop-closure match throughput at
-1 vs N devices (the >=70%-at-N-hosts target in BASELINE.md).
+"""Scaling-efficiency harness: sharded loop-closure match throughput and
+distributed-SPA solve time at 1, 2, 4, ... devices.
 
-On real multi-chip hardware this measures true ICI scaling; in this
-environment (one real TPU chip) run it on the virtual CPU mesh to validate
-the measurement path:
-
-  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-      python scaling_bench.py
+    python scaling_bench.py          # every local device (e.g. 4 GPUs)
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python scaling_bench.py      # rehearsal on virtual CPU devices
 
 Prints one JSON line per mesh size and a final efficiency summary.
-Note: virtual CPU devices share the same physical cores, so CPU-mesh
-efficiency numbers validate the harness, not the hardware.
+Virtual CPU devices share the same physical cores, so CPU-mesh efficiency
+numbers validate the harness, not the hardware.
 """
 import json
 import time
@@ -51,8 +48,7 @@ def build_spa_graph(spa, n_nodes, seed=0):
 
 
 def bench_dist_spa(sizes, edges_per_device=512, repeats=3):
-    """Weak-scaling row for the distributed SPA (VERDICT r4 item 5):
-    edges/device held constant, LM/CG iteration counts pinned, so ideal
+    """Weak-scaling row for the distributed SPA: edges/device held constant, LM/CG iteration counts pinned, so ideal
     weak scaling is FLAT solve time as devices grow."""
     import jax
 
@@ -90,6 +86,10 @@ def bench_dist_spa(sizes, edges_per_device=512, repeats=3):
 
 def main(n_jobs=32, repeats=3):
     import jax
+
+    from yag_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from yag_slam_tpu.matching.matcher import CorrelativeScanMatcher
     from yag_slam_tpu.parallel.loop_search import ShardedLoopMatcher

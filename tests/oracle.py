@@ -63,17 +63,18 @@ def oracle_build_grid(point_sets, ox, oy, grid_size, res, kernel):
     return cgrid
 
 
-def oracle_find_best_pose(
-    cgrid, ptsx, ptsy, cx, cy, ct, ox, oy, xy_size, xy_res, ang_size, ang_res,
+def oracle_score_lattice(
+    q, ptsx, ptsy, cx, cy, ct, ox, oy, xy_size, xy_res, ang_size, ang_res,
     grid_res, penalize, symmetric=True,
 ):
-    G = cgrid.shape[0]
+    """Response of every (x, y, theta) candidate against a quantized
+    (floor(100 x)) full grid `q`; returns (out, xvals, yvals, tvals)."""
+    G = q.shape[0]
     xvals = np.arange(-xy_size + cx, xy_size + cx, xy_res)
     yvals = np.arange(-xy_size + cy, xy_size + cy, xy_res)
     tvals = np.arange(-ang_size + ct, ang_size + ct, ang_res)
     NX, NY, NT = len(xvals), len(yvals), len(tvals)
 
-    q = np.floor(cgrid * 100.0)
     out = np.empty((NX, NY, NT))
     for k, t in enumerate(tvals):
         rx = ptsx * np.cos(t) - ptsy * np.sin(t)
@@ -98,7 +99,17 @@ def oracle_find_best_pose(
         ) / (0.5 * grid_res)
         ap = 1.0 - 0.2 * (tvals - ct) ** 2 / (1.0 * grid_res)
         out = out * dp[:, :, None] * ap[None, None, :]
-    out = out / 100.0
+    return out / 100.0, xvals, yvals, tvals
+
+
+def oracle_find_best_pose(
+    cgrid, ptsx, ptsy, cx, cy, ct, ox, oy, xy_size, xy_res, ang_size, ang_res,
+    grid_res, penalize, symmetric=True,
+):
+    out, xvals, yvals, tvals = oracle_score_lattice(
+        np.floor(cgrid * 100.0), ptsx, ptsy, cx, cy, ct, ox, oy, xy_size,
+        xy_res, ang_size, ang_res, grid_res, penalize, symmetric)
+    NX, NY, NT = out.shape
 
     m = int(np.argmax(out))
     ii, jj, kk = np.unravel_index(m, out.shape)

@@ -1,13 +1,13 @@
-"""Whole-pipeline A/B: reference-matcher-driven GraphSlam vs the TPU
+"""Whole-pipeline A/B: reference-matcher-driven GraphSlam vs the JAX
 pipeline on the same CARMEN log.
 
 The per-match golden tests pin 1e-12 parity against the reference
 algorithm (tests/test_native.py, tests/test_matching.py); this module
-converts that into whole-TRAJECTORY parity evidence (VERDICT r4 item 1):
+converts that into whole-TRAJECTORY parity evidence:
 the full GraphSlam orchestration driven by the reference-equivalent C++
 matcher (native/refbaseline.cpp wrapped by matching/refmatcher.py — the
 reference pipeline, /root/reference/yag_slam/graph_slam.py:306-339)
-produces a reference trajectory, and the TPU pipeline's ATE/closure count
+produces a reference trajectory, and the JAX pipeline's ATE/closure count
 must match or beat it.
 """
 import numpy as np
@@ -49,18 +49,18 @@ def test_reference_pipeline_runs(ab_run):
 
 
 def test_ate_parity_vs_reference_pipeline(ab_run):
-    """TPU-pipeline trajectory matches or beats the reference-driven
+    """JAX-pipeline trajectory matches or beats the reference-driven
     run on the same log: same integrated subset, ATE within 10% (both
     pipelines make float-boundary accept/reject decisions, so exact
     trajectory equality is not required — closure-level agreement is)."""
-    ref, tpu = ab_run["ref"], ab_run["tpu"]
+    ref, ours = ab_run["ref"], ab_run["jax"]
     # identical gating -> identical integrated subset -> same vertex count
-    assert tpu["vertices"] == ref["vertices"]
+    assert ours["vertices"] == ref["vertices"]
     # closure behavior must agree to within one closure
-    assert abs(tpu["loop_closures"] - ref["loop_closures"]) <= 1
-    assert tpu["loop_closures"] >= 1
+    assert abs(ours["loop_closures"] - ref["loop_closures"]) <= 1
+    assert ours["loop_closures"] >= 1
     # the headline: ATE matches (10% + 2 cm slack for decision-boundary
     # divergence) or beats the reference pipeline's
-    assert tpu["ate_rmse"] <= ref["ate_rmse"] * 1.10 + 0.02, ab_run
+    assert ours["ate_rmse"] <= ref["ate_rmse"] * 1.10 + 0.02, ab_run
     # and both beat raw odometry
-    assert tpu["ate_rmse"] < tpu["ate_odom"]
+    assert ours["ate_rmse"] < ours["ate_odom"]

@@ -85,7 +85,7 @@ def test_online_mapper_motion_gate_rejects_static():
 
 def test_online_mapper_motion_gate_wraps_yaw():
     """Crossing +/-pi is a tiny rotation, not a 2*pi one: the gate must
-    wrap the yaw difference (VERDICT r4 weak 7)."""
+    wrap the yaw difference."""
     mapper = make_mapper()
     world = SimWorld.office()
     scan = simulate_scan(world, np.array([0.0, 0.0, 3.1]), n_beams=200,
@@ -108,7 +108,7 @@ def test_online_mapper_motion_gate_wraps_yaw():
 def test_localization_mapper_batch_stream_bootstrap():
     """add_scans_batch_stream on a fresh localization mapper (base map
     loaded, no running scans, pending initial_pose) must splice the first
-    scan per-scan instead of streaming it (ADVICE r4: the streamed path
+    scan per-scan instead of streaming it (the streamed path
     would assign a duplicate node id and stamp the initial pose onto
     every scan)."""
     from tests.test_splicing import make_map_image
@@ -203,7 +203,7 @@ def test_carmen_robotlaser1_real_layout(tmp_path):
     params, readings, remissions, laser+robot poses, tv/rv/safety/
     turn_axis, timestamps) must parse identically through the native C++
     parser and the pure-Python fallback, end to end into LocalizedRangeScan
-    (VERDICT r4 item 8 — only FLASER was exercised before)."""
+   ."""
     from yag_slam_tpu import native
     from yag_slam_tpu.io.benchmark import generate_benchmark_log
     from yag_slam_tpu.io.carmen import parse_carmen_line
@@ -260,3 +260,27 @@ def test_offline_mapper_cli(tmp_path):
     assert summary2["vertices"] == summary["vertices"]
     assert summary2["loop_closures"] == summary["loop_closures"]
     assert abs(summary2["ate_rmse"] - summary["ate_rmse"]) < 1e-6
+
+
+def test_offline_mapper_resumes_from_checkpoint(tmp_path):
+    """--resume loads a saved graph and keeps mapping the rest of the log
+    (--first-scan); each run reports ATE for the scans it integrated,
+    beside raw odometry's."""
+    from yag_slam_tpu.apps.offline_mapper import main
+    from yag_slam_tpu.io.benchmark import generate_benchmark_log
+
+    log, gtp, n = generate_benchmark_log(
+        str(tmp_path / "b.clf"), step=0.5, laps=1, n_beams=120, seed=1)
+    cfg = ["--carmen", log, "--gt", gtp, "--range-threshold", "6",
+           "--resolution", "0.03", "--search-size", "0.5",
+           "--smear-deviation", "0.05", "--loop-resolution", "0.06",
+           "--no-map-image"]
+    first = main(cfg + ["--max-scans", "60", "--out", str(tmp_path / "a")])
+    second = main(cfg + ["--max-scans", "90", "--first-scan", "60",
+                         "--resume", first["graph"],
+                         "--out", str(tmp_path / "b")])
+    assert first["integrated"] > 10 and second["integrated"] > 5
+    assert second["vertices"] == first["vertices"] + second["integrated"]
+    for s in (first, second):
+        assert np.isfinite(s["ate_rmse"]) and np.isfinite(s["ate_rmse_odom"])
+        assert s["ate_rmse"] < 0.5

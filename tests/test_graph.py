@@ -4,7 +4,7 @@ The reference's spatial hash scans EVERY bucket per query
 (/root/reference/yag_slam/helpers.py:420-431) and is rebuilt from
 scratch after every optimization (graph_slam.py:272).  Ours must return
 the identical result sets while doing O((radius/res)^2) key lookups per
-query (flat in graph size) and incremental re-keying (VERDICT r3 item 6).
+query (flat in graph size) and incremental re-keying.
 """
 import time
 

@@ -2,7 +2,7 @@
 devices, coordinated by jax.distributed over TCP (the DCN analog) — the
 2-fake-host harness SURVEY §7 calls for, exercising
 parallel.sharding.initialize_multihost, DistributedSPA and
-ShardedLoopMatcher across a process boundary (VERDICT r1 item 4)."""
+ShardedLoopMatcher across a process boundary."""
 import json
 import os
 import socket

@@ -129,7 +129,7 @@ def test_block_dispatch_matches_sequential_loop():
 @pytest.mark.parametrize("block,sync_every,lag",
                          [(True, 2, 1), (True, 4, 1), (False, 4, 2)])
 def test_lagged_readback_matches_sequential_loop(block, sync_every, lag):
-    """lag_blocks > 0 (readback coalescing, VERDICT r4 item 3) defers
+    """lag_blocks > 0 (readback coalescing) defers
     each group's host fetch by `lag` dispatches so the transfer overlaps
     the next block's compute.  Results and final poses must still equal
     the sequential loop's exactly, including the lagged tail at flush."""
@@ -200,12 +200,11 @@ def test_lagged_redo_folds_in_kept_groups():
 
 
 def test_pipeline_redo_sweep_mid_batch():
-    """The sync-time validation's synchronous forward sweep (VERDICT r3
-    weak #2/#3): when a mid-batch match is flagged (subgrid insufficient
+    """The sync-time validation's synchronous forward sweep: when a mid-batch match is flagged (subgrid insufficient
     at the device-exact poses, or empty coarse response), it and every
     chained match after it must be redone as ONE bounded lockstep sweep —
     each retry centered on the previous scan's device-exact pose composed
-    with the odometry delta (ADVICE r3 medium) — and the final results
+    with the odometry delta — and the final results
     must equal the sequential loop's exactly."""
     window = 6
     scans_a, _ = make_stream(n=20)

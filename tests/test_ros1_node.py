@@ -1,4 +1,4 @@
-"""Headless tests for the ROS1 shim (VERDICT r1 item 8): stub rospy/tf2_ros
+"""Headless tests for the ROS1 shim: stub rospy/tf2_ros
 and exercise the actual glue — param plumbing, scan callback TF handling,
 upside-down-lidar detection, map message construction, services, and the
 map->odom broadcast — without a ROS installation."""

@@ -116,7 +116,7 @@ def test_load_reference_format_checkpoint():
 
 def test_config_extension_keys_wire_format():
     """Default configs must serialize with EXACTLY the reference's 11 keys
-    (byte-compatible wire format); the TPU-side extension fields
+    (byte-compatible wire format); the extension fields
     (use_karto_penalties, minimum_distance_penalty) appear only when
     non-default and round-trip through our loader."""
     from yag_slam_tpu.core.config import make_config

@@ -196,7 +196,7 @@ def _noisy_loop_graph(n_side=12, seed=5):
 @pytest.mark.parametrize("solver", ["dense", "cg"])
 def test_mixed_precision_matches_f64_and_host(solver):
     """The mixed-precision device steps (f32 factorization/CG + f64
-    matrix-free iterative refinement, VERDICT r4 item 2) must reach the
+    matrix-free iterative refinement) must reach the
     same optimum as the all-f64 device path and the host sparse solver on
     an ill-conditioned noisy loop."""
     guesses, edges, info = _noisy_loop_graph()
@@ -221,60 +221,34 @@ def test_mixed_precision_matches_f64_and_host(solver):
     assert np.allclose(p_m, p_h, atol=2e-3), np.abs(p_m - p_h).max()
 
 
-def test_onehot_segment_sums_match_scatter():
-    """The TPU fast path replaces XLA's serialized scatter-adds with
-    one-hot matmul segment sums (spa._edge_onehots); the two assemblies
-    must agree exactly on H, b, the block diagonal and H@v."""
+def _f32_dot_precisions(fn, *args, **kwargs):
+    """Precision of every float32 dot_general in fn's traced program,
+    nested programs included."""
+    import jax
     import jax.numpy as jnp
 
-    from yag_slam_tpu.graphopt import spa as S
+    found = []
 
-    rng = np.random.default_rng(3)
-    n_cap, e = 16, 22
-    poses = jnp.asarray(rng.normal(0, 1.0, (n_cap, 3)))
-    eidx = jnp.asarray(rng.integers(0, 12, (e, 2)), dtype=jnp.int32)
-    means = jnp.asarray(rng.normal(0, 0.5, (e, 3)))
-    A = rng.normal(0, 1, (e, 3, 3))
-    infos = jnp.asarray(np.einsum("eij,ekj->eik", A, A) + np.eye(3))
-    emask = jnp.asarray(rng.random(e) > 0.2)
-    free = np.ones(n_cap, bool)
-    free[0] = False
-    free[13:] = False  # padding
-    free = jnp.asarray(free)
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if (eqn.primitive.name == "dot_general"
+                    and eqn.invars[0].aval.dtype == jnp.float32):
+                found.append(eqn.params["precision"])
+            for v in eqn.params.values():
+                for sub in v if isinstance(v, (list, tuple)) else (v,):
+                    inner = getattr(sub, "jaxpr", sub)
+                    if hasattr(inner, "eqns"):
+                        walk(inner)
 
-    oh = S._edge_onehots(eidx, n_cap, poses.dtype)
-    H1, b1 = S.build_normal_equations(poses, eidx, means, infos, emask,
-                                      free, n_cap=n_cap)
-    H2, b2 = S.build_normal_equations_matmul(poses, eidx, means, infos,
-                                             emask, free, n_cap=n_cap,
-                                             onehots=oh)
-    np.testing.assert_allclose(np.asarray(H1), np.asarray(H2), atol=1e-10)
-    np.testing.assert_allclose(np.asarray(b1), np.asarray(b2), atol=1e-10)
-
-    r, Ji, Jj, W = S._edge_blocks(poses, eidx, means, infos, emask)
-    D1 = S._hessian_diag_blocks(Ji, Jj, W, eidx, free, n_cap, poses.dtype)
-    D2 = S._hessian_diag_blocks(Ji, Jj, W, eidx, free, n_cap, poses.dtype,
-                                onehots=oh)
-    np.testing.assert_allclose(np.asarray(D1), np.asarray(D2), atol=1e-10)
-
-    v = jnp.asarray(rng.normal(0, 1, (n_cap, 3)))
-    h1 = S._make_hvp(Ji, Jj, W, eidx, free, n_cap, poses.dtype)(v)
-    h2 = S._make_hvp(Ji, Jj, W, eidx, free, n_cap, poses.dtype,
-                     onehots=oh)(v)
-    np.testing.assert_allclose(np.asarray(h1), np.asarray(h2), atol=1e-10)
+    walk(jax.make_jaxpr(lambda *a: fn(*a, **kwargs))(*args).jaxpr)
+    return found
 
 
-def test_mixed_candidates_with_onehots_forced(monkeypatch):
-    """Force the one-hot (TPU) branch on CPU: the mixed dense and CG
-    candidate steps must produce the same update as with scatters."""
+def _padded_loop(n_side=4, seed=9, n_cap=32, e_cap=64):
     import jax.numpy as jnp
 
-    from yag_slam_tpu.graphopt import spa as S
-
-    guesses, edges, info = _noisy_loop_graph(n_side=4, seed=9)
+    guesses, edges, info = _noisy_loop_graph(n_side=n_side, seed=seed)
     n = len(guesses)
-    n_cap = 32
-    e_cap = 64
     poses = np.zeros((n_cap, 3))
     poses[:n] = np.asarray(guesses)
     eidx = np.zeros((e_cap, 2), dtype=np.int32)
@@ -288,28 +262,48 @@ def test_mixed_candidates_with_onehots_forced(monkeypatch):
         emask[k] = True
     free = np.zeros(n_cap, bool)
     free[1:n] = True
-    args = (jnp.asarray(poses), jnp.asarray(eidx), jnp.asarray(means),
+    return (jnp.asarray(poses), jnp.asarray(eidx), jnp.asarray(means),
             jnp.asarray(infos), jnp.asarray(emask), jnp.asarray(free),
             jnp.asarray(1.0e-4))
 
-    outs = {}
-    for forced in (False, True):
-        monkeypatch.setattr(S, "_use_onehot_segsum", lambda f=forced: f)
-        cand_d, cost_d = S._lm_candidate_mixed(*args, n_cap=n_cap)
-        cand_c, cost_c = S._lm_candidate_cg_mixed(
-            *args, jnp.asarray(1.0e-9), n_cap=n_cap, cg_iters=200,
-        )
-        outs[forced] = (np.asarray(cand_d), float(cost_d),
-                        np.asarray(cand_c), float(cost_c))
-    np.testing.assert_allclose(outs[True][0], outs[False][0], atol=1e-8)
-    np.testing.assert_allclose(outs[True][2], outs[False][2], atol=1e-6)
-    assert np.isclose(outs[True][1], outs[False][1], rtol=1e-8)
+
+@pytest.mark.parametrize("step", ["dense", "cg"])
+def test_mixed_steps_trace_f32_products_at_highest(step):
+    """The f32 products of the mixed-precision steps carry precision
+    HIGHEST, so no backend may run them in a reduced format (TF32)."""
+    import jax
+    import jax.numpy as jnp
+
+    from yag_slam_tpu.graphopt import spa as S
+
+    args = _padded_loop()
+    if step == "dense":
+        found = _f32_dot_precisions(S._lm_candidate_mixed, *args, n_cap=32)
+    else:
+        found = _f32_dot_precisions(S._lm_candidate_cg_mixed, *args,
+                                    jnp.asarray(1e-9), n_cap=32, cg_iters=20)
+    assert found, "no f32 products traced"
+    hi = jax.lax.Precision.HIGHEST
+    assert all(p == (hi, hi) for p in found), found
+
+
+def test_mixed_dense_step_matches_f64_step():
+    """One damped step: f32 Cholesky + f64 refinement lands on the all-f64
+    step (the refinement recovers f64 accuracy)."""
+    from yag_slam_tpu.graphopt import spa as S
+
+    args = _padded_loop()
+    cand_m, cost_m = S._lm_candidate_mixed(*args, n_cap=32)
+    cand_f, cost_f = S.lm_candidate(*args, n_cap=32)
+    np.testing.assert_allclose(np.asarray(cand_m), np.asarray(cand_f),
+                               atol=1e-9)
+    assert np.isclose(float(cost_m), float(cost_f), rtol=1e-9)
 
 
 def test_host_lm_disconnected_free_node():
     """A free node with no incident constraints must not break the host
     sparse path (structurally singular H): it gets an identity row and a
-    zero update, like the device paths (ADVICE r1)."""
+    zero update, like the device paths."""
     spa = SPA2d(solver="host")
     spa.add_node(0.0, 0.0, 0.0, 0)
     spa.add_node(1.0, 0.1, 0.0, 1)
@@ -326,8 +320,8 @@ def test_host_lm_disconnected_free_node():
 
 
 def test_conv_tol_plumbed_through_compute():
-    """Tighter conv_tol must not stop earlier than a loose one (ADVICE r1:
-    SPA2d.compute previously had no way to tighten the LM stop)."""
+    """Tighter conv_tol must not stop earlier than a loose one (SPA2d.compute
+    previously had no way to tighten the LM stop)."""
     rng = np.random.default_rng(3)
 
     def build(spa):

@@ -101,3 +101,31 @@ def test_map_to_graphslam_and_continue():
     assert res.response > 0.2
     assert abs(res.best_pose.x - pose[0]) < 0.3
     assert abs(res.best_pose.y - pose[1]) < 0.3
+
+
+def test_kmeans_distance_products_at_highest_precision():
+    """The k-means distance products are traced at precision HIGHEST, so a
+    reduced-precision matmul (TF32) cannot move assignments."""
+    import jax
+
+    from yag_slam_tpu.splicing.segmentation import _kmeans_iters
+
+    found = []
+    pts = jnp.zeros((64, 2), jnp.float32)
+    jaxpr = jax.make_jaxpr(
+        lambda p, v, c: _kmeans_iters(p, v, c, n_iters=2)
+    )(pts, jnp.ones(64, bool), pts[:4])
+
+    def walk(j):
+        for eqn in j.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append(eqn.params["precision"])
+            for v in eqn.params.values():
+                for sub in v if isinstance(v, (list, tuple)) else (v,):
+                    inner = getattr(sub, "jaxpr", sub)
+                    if hasattr(inner, "eqns"):
+                        walk(inner)
+
+    walk(jaxpr.jaxpr)
+    hi = jax.lax.Precision.HIGHEST
+    assert len(found) == 2 and all(p == (hi, hi) for p in found), found

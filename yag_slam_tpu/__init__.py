@@ -1,14 +1,15 @@
-"""yag_slam_tpu — a TPU-native 2D graph-SLAM engine (JAX/XLA/Pallas).
+"""yag_slam_tpu — a 2D graph-SLAM engine in JAX/XLA.
 
 A from-scratch rebuild of the capability set of safijari/yag-slam
 (online correlation-grid scan matching, pose-graph construction, loop
 closure, sparse pose adjustment, occupancy-grid mapping, portable
-serialization, lifelong mapping / map splicing) architected for TPU:
+serialization, lifelong mapping / map splicing) architected for an
+accelerator (an NVIDIA GPU):
 
 - scans are fixed-width array pytrees, not Python objects shadowed by C++
   (reference keeps dual state: /root/reference/yag_slam/models.py:37-39);
 - the correlation matcher scores the full (x, y, theta) candidate lattice in
-  one batched XLA/Pallas program instead of a numba triple loop
+  one batched XLA program instead of a numba triple loop
   (reference: /root/reference/yag_slam/helpers.py:156-295);
 - pose-graph optimization is an array-native Gauss-Newton/LM solver
   (reference delegates to the C++ `sba_cpp.SPA2d`,

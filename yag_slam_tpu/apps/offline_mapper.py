@@ -8,6 +8,9 @@ ROS node (which has no offline path).
 Usage:
   yag-slam-tpu-mapper --carmen intel.clf --out /tmp/intel
   yag-slam-tpu-mapper --synthetic-laps 2 --out /tmp/sim
+  # keep mapping the rest of a log from a saved checkpoint
+  yag-slam-tpu-mapper --carmen intel.clf --first-scan 900 \
+      --resume /tmp/intel.graph --out /tmp/intel2
 """
 from __future__ import annotations
 
@@ -23,7 +26,10 @@ def run_carmen(args):
     from yag_slam_tpu.io.carmen import load_carmen_log
 
     scans = load_carmen_log(args.carmen, max_scans=args.max_scans)
-    print(f"loaded {len(scans)} scans from {args.carmen}")
+    first = args.first_scan
+    scans = scans[first:]
+    print(f"loaded {len(scans)} scans from {args.carmen} "
+          f"(from scan {first})")
     seq_cfg = {"range_threshold": args.range_threshold,
                "use_karto_penalties": args.karto_penalties}
     loop_cfg = {"range_threshold": args.range_threshold,
@@ -50,6 +56,14 @@ def run_carmen(args):
         min_response_coarse=args.min_response_coarse,
         min_response_fine=args.min_response_fine,
     )
+    if args.resume:
+        from yag_slam_tpu.slam.graph_slam import GraphSlam
+
+        mapper.slam = GraphSlam.from_file(args.resume)
+        print(f"resumed {len(mapper.slam.graph.vertices)} vertices from "
+              f"{args.resume}")
+    n_before = len(mapper.slam.graph.vertices)
+    closures_before = mapper.slam.stats["loop_closures"]
     t0 = time.time()
     integrated_idx = []
     if args.stream:
@@ -76,18 +90,28 @@ def run_carmen(args):
                 integrated_idx.append(i)
     elapsed = time.time() - t0
     integrated = len(integrated_idx)
+    closures = mapper.slam.stats["loop_closures"] - closures_before
     print(
         f"integrated {integrated}/{len(scans)} scans in {elapsed:.1f}s "
         f"({integrated / max(elapsed, 1e-9):.2f} scans/s), "
-        f"{mapper.slam.stats['loop_closures']} loop closures"
+        f"{closures} loop closures"
     )
-    gt = None
+    run = {"integrated": integrated, "seconds": elapsed,
+           "scans_per_sec": integrated / max(elapsed, 1e-9),
+           "loop_closures": closures}
     if args.gt:
         # sidecar ground truth, one xyt row per log scan (see
-        # io/benchmark.write_carmen_log); subset to the integrated scans
-        full_gt = np.loadtxt(args.gt)
-        gt = full_gt[np.asarray(integrated_idx, dtype=int)]
-    return mapper, gt
+        # io/benchmark.write_carmen_log); the errors cover the scans this
+        # run integrated, for the mapper and for raw odometry alike
+        from yag_slam_tpu.utils.metrics import ate_rmse, trajectory_from_slam
+
+        idx = np.asarray(integrated_idx, dtype=int)
+        gt = np.loadtxt(args.gt)[first:][idx]
+        est = trajectory_from_slam(mapper.slam)[n_before:]
+        odom = np.array([[scans[i].odom_x, scans[i].odom_y] for i in idx])
+        run["ate_rmse"] = ate_rmse(est, gt[:, :2], align=False)
+        run["ate_rmse_odom"] = ate_rmse(odom, gt[:, :2], align=False)
+    return mapper, run
 
 
 def run_synthetic(args):
@@ -135,7 +159,15 @@ def run_synthetic(args):
         f"({len(gt) / elapsed:.2f} scans/s), "
         f"{mapper.slam.stats['loop_closures']} loop closures"
     )
-    return mapper, gt
+    from yag_slam_tpu.utils.metrics import ate_rmse, trajectory_from_slam
+
+    run = {"integrated": len(gt), "seconds": elapsed,
+           "scans_per_sec": len(gt) / elapsed,
+           "loop_closures": mapper.slam.stats["loop_closures"],
+           "ate_rmse": ate_rmse(trajectory_from_slam(mapper.slam),
+                                gt[:, :2], align=False),
+           "ate_rmse_odom": ate_rmse(odom[:, :2], gt[:, :2], align=False)}
+    return mapper, run
 
 
 def main(argv=None):
@@ -144,6 +176,10 @@ def main(argv=None):
     ap.add_argument("--gt", help="ground-truth sidecar (xyt row per scan)")
     ap.add_argument("--synthetic-laps", type=int, default=0)
     ap.add_argument("--max-scans", type=int, default=None)
+    ap.add_argument("--first-scan", type=int, default=0,
+                    help="skip the log's scans before this index")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint (.graph) to load and keep mapping from")
     ap.add_argument("--out", default="/tmp/yag_slam_tpu_map")
     ap.add_argument("--range-threshold", type=float, default=20.0)
     ap.add_argument("--min-distance", type=float, default=0.5)
@@ -172,11 +208,16 @@ def main(argv=None):
     ap.add_argument("--no-map-image", action="store_true",
                     help="skip the PNG render (benchmark runs)")
     args = ap.parse_args(argv)
+    if args.resume and not args.carmen:
+        ap.error("--resume needs --carmen")
 
+    from yag_slam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.carmen:
-        mapper, gt = run_carmen(args)
+        mapper, run = run_carmen(args)
     elif args.synthetic_laps:
-        mapper, gt = run_synthetic(args)
+        mapper, run = run_synthetic(args)
     else:
         ap.error("need --carmen or --synthetic-laps")
 
@@ -186,7 +227,8 @@ def main(argv=None):
     summary = {
         "vertices": len(mapper.slam.graph.vertices),
         "edges": len(mapper.slam.graph.edges),
-        "loop_closures": mapper.slam.stats["loop_closures"],
+        **run,
+        "graph": graph_path,
     }
     if not args.no_map_image:
         ros_img, grid = mapper.render_map()
@@ -203,11 +245,6 @@ def main(argv=None):
         except Exception as e:  # pragma: no cover
             print("map image not saved:", e)
         summary["map_size"] = [grid.width, grid.height]
-    if gt is not None:
-        from yag_slam_tpu.utils.metrics import ate_rmse, trajectory_from_slam
-
-        est = trajectory_from_slam(mapper.slam)
-        summary["ate_rmse"] = ate_rmse(est, gt[:, :2], align=False)
     print(json.dumps(summary))
     return summary
 

@@ -18,7 +18,7 @@ class ScanMatcherConfig:
     """Same key set and defaults as the reference's `default_config`
     (/root/reference/yag_slam/helpers.py:339-351).
 
-    DELIBERATE DECISION (VERDICT r1 item 9) on the three penalty keys:
+    DELIBERATE DECISION on the three penalty keys:
     `angle_variance_penalty`, `distance_variance_penalty` and
     `minimum_angle_penalty` are carried for config/serde/checkpoint parity
     but, by DEFAULT, NOT consumed by the scoring kernels.  The reference's
@@ -30,7 +30,7 @@ class ScanMatcherConfig:
     minimums); following it by default would silently diverge from the
     Python spec that every golden test in tests/test_matching.py pins.
 
-    `use_karto_penalties=True` (VERDICT r4 item 6) opts into the
+    `use_karto_penalties=True` opts into the
     C++-matcher semantics instead: penalties computed as
     max(1 - 0.2*offset^2/variance, minimum) with the offsets measured
     from the SEARCH CENTER and the config's variance keys consumed
@@ -38,7 +38,7 @@ class ScanMatcherConfig:
     ScanMatcher::CorrelateScan, surfaced through the reference's config
     keys at /root/reference/yag_slam/helpers.py:339-351.
     `minimum_distance_penalty` (Karto default 0.5) completes that key
-    set; it and the switch are TPU-side extensions, written into
+    set; it and the switch are this engine's extensions, written into
     checkpoints only when non-default (slam/serde.py keeps the wire
     format byte-identical to the reference otherwise)."""
 

@@ -127,8 +127,8 @@ class RadiusHashSearch:
     truncated integer cell, search returns all buckets whose cell-corner
     pose lies within (radius + res) of the query.
 
-    Two scaling upgrades over the reference (VERDICT r3 item 6; result
-    sets are identical):
+    Two scaling upgrades over the reference (result sets are
+    identical):
 
     - ``crude_radius_search`` enumerates only the bounded key window that
       can pass the corner-distance test — O((radius/res)^2) dict lookups

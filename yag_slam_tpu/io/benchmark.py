@@ -117,8 +117,8 @@ def write_carmen_log(path, world, gt_poses, odom_poses, n_beams=180,
     fmt="robotlaser1": CARMEN v2 `ROBOTLASER1` lines in the exact field
     layout of real logger output (carmen readlog.c): laser params,
     readings, remissions, laser+robot poses, tv/rv/safety/turn_axis,
-    timestamp hostname logger_timestamp (VERDICT r4 item 8 — both parse
-    paths exercised end-to-end)."""
+    timestamp hostname logger_timestamp (both parse paths are exercised
+    end-to-end)."""
     rng = np.random.default_rng(seed)
     inc = np.pi / n_beams
     rel_angles = -np.pi / 2 + np.arange(n_beams) * inc

@@ -7,7 +7,7 @@ stopping value in (180, 210) is "unknown" and throws the endpoint 1000 px
 further (range poisoning, so synthetic scans ignore unknown space); the ray
 also stops when the next position leaves the 1-px interior border.
 
-TPU-native shape: instead of a sequential march per ray, all (ray, step)
+Device shape: instead of a sequential march per ray, all (ray, step)
 sample positions are generated up front, the image is gathered once, and
 the first stop event per ray is found with a masked argmax — one fused
 program for a full 1439-ray sweep.

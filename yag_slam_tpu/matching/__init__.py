@@ -7,7 +7,7 @@ from yag_slam_tpu.matching.refmatcher import RefBaselineScanMatcher
 
 # Drop-in aliases for the reference's two matcher classes
 # (/root/reference/yag_slam/scan_matching.py:32,45): both map onto the one
-# TPU implementation here.
+# implementation here.
 Scan2DMatcherCpp = CorrelativeScanMatcher
 Scan2DMatcherPy = CorrelativeScanMatcher
 

@@ -7,7 +7,7 @@ Behavioral spec: the reference's numba kernels
 This module reproduces their *semantics* (banker's rounding into grid cells,
 int-truncated 100x scoring, tie-averaged argmax within 1e-8, windowed
 covariance with the reference's half-open windows) but is architected for
-TPU rather than translated:
+an accelerator rather than translated:
 
 - The whole (x, y, theta) candidate lattice is scored in one batched
   program (gathers + reductions) instead of a `prange` triple loop.
@@ -22,12 +22,11 @@ TPU rather than translated:
   part reduces to one vectorized cross-product side test on device
   (:func:`keep_mask_for_viewpoint`).
 
-All device functions take a `dtype` (float32 on TPU; tests run float64 on
-CPU to pin down golden agreement with the float64 oracle).
+All device functions take a `dtype` (float32 on the GPU; tests run float64
+on CPU to pin down golden agreement with the float64 oracle).
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -197,173 +196,78 @@ def quantize_grid(cgrid):
 # subgrid origin (sox, soy) and a bucketed static size S per match.
 # ---------------------------------------------------------------------------
 
-def build_occupancy_padded(
-    wx, wy, keep, ox, oy, sox, soy, *, G, S, h, Cpad, res, dtype
-):
+def build_occupancy_padded(wx, wy, keep, ox, oy, sox, soy, *, G, S, h, res,
+                           dtype):
     """Scatter occupied indicators into a halo-padded batched subgrid.
 
     wx, wy, keep: (N, B, P) world points + keep mask; ox, oy, sox, soy: (N,).
-    Returns (N, S + 2*ROW_TILE, Cpad) float — the smear kernels' layout
-    (occupied cells at row offset +ROW_TILE, column offset +h; the row pad
-    carries the pipelined halo strips).
+    Returns (N, S + 2h, S + 2h) with subgrid cell (r, c) at (r + h, c + h).
     Points outside the *full* grid are dropped (reference semantics:
-    /root/reference/yag_slam/helpers.py:123-131); the subgrid is
-    constructed by the caller to contain every remaining point.
+    reference yag_slam/helpers.py:123-131); points outside the
+    padded subgrid are more than h cells from every subgrid cell, so their
+    smear cannot reach it and dropping them is exact.
     """
-    from yag_slam_tpu.matching.pallas_kernels import ROW_TILE
-
     N = wx.shape[0]
-    rows = S + 2 * ROW_TILE
-    gx = world_to_grid_idx(wx, ox[:, None, None], res)
-    gy = world_to_grid_idx(wy, oy[:, None, None], res)
-    inb = (gx >= 0) & (gx < G) & (gy >= 0) & (gy < G) & keep
-    sx = gx - sox[:, None, None] + h
-    sy = gy - soy[:, None, None] + ROW_TILE
-    ins = (sx >= 0) & (sx < Cpad) & (sy >= 0) & (sy < rows)
-    rowsz = rows * Cpad
-    b_idx = jnp.arange(N, dtype=jnp.int32)[:, None, None]
-    lin = jnp.where(inb & ins, b_idx * rowsz + sy * Cpad + sx, N * rowsz)
-    occ = (
-        jnp.zeros(N * rowsz + 1, dtype=dtype)
-        .at[lin.ravel()]
-        .max(jnp.ones(lin.size, dtype=dtype))
-    )
-    return occ[: N * rowsz].reshape(N, rows, Cpad)
-
-
-
-
-def dedup_scatter_cells(sy, sx, ok, n_cols):
-    """Sort each job's scatter cells, drop duplicate cells and compact
-    valid lanes to the front.
-
-    The occupancy scatter is an idempotent {0,1} max-write, so
-    deduplication is EXACT.  With a B-scan sliding window re-observing
-    the same surfaces, ~45% of valid lanes are duplicate cells and ~35%
-    of lanes are padding (bench shapes: 8192 lanes -> ~2800 unique
-    cells), and the Pallas scatter kernels' serialized per-point RMW
-    loop runs to the LAST valid lane — so sorting shrinks that loop ~3x
-    and makes the surviving RMWs spatially coherent (ascending rows).
-    Two vectorized XLA sorts replace serialized scalar work.
-
-    sy/sx: (N, M) int32 (invalid lanes sy = -1); returns
-    (sy', sx', m_used') with the same contract."""
-    from yag_slam_tpu.matching.pallas_kernels import scatter_used_lanes
-
-    big = jnp.iinfo(jnp.int32).max
-    key = jnp.where(ok, sy * n_cols + sx, big)
-    skey = jnp.sort(key, axis=1)
-    uniq = jnp.concatenate(
-        [jnp.ones_like(skey[:, :1], dtype=bool),
-         skey[:, 1:] != skey[:, :-1]],
-        axis=1,
-    ) & (skey != big)
-    ckey = jnp.sort(jnp.where(uniq, skey, big), axis=1)
-    valid = ckey != big
-    sy2 = jnp.where(valid, ckey // n_cols, -1).astype(jnp.int32)
-    sx2 = jnp.where(valid, ckey % n_cols, 0).astype(jnp.int32)
-    return sy2, sx2, scatter_used_lanes(valid)
-
-
-def build_occupancy_pallas(
-    wx, wy, keep, ox, oy, sox, soy, *, G, S, h, Cpad, res, dtype,
-    interpret=False,
-):
-    """Pallas twin of :func:`build_occupancy_padded`: same layout and
-    bounds semantics, but the scatter runs as per-job VMEM stores instead
-    of XLA's serialized scatter-max (~0.25 us/index on v5e).  Invalid
-    points carry sy = -1 and are predicated away inside the kernel, whose
-    loop stops at the job's last valid lane (the padded tail — empty
-    base-scan slots + beam padding — is ~40% of lanes at defaults)."""
-    from yag_slam_tpu.matching.pallas_kernels import (
-        ROW_TILE,
-        scatter_occupancy_pallas,
-    )
-
-    assert 0 <= h < ROW_TILE, h
-
-    N = wx.shape[0]
-    rows = S + 2 * ROW_TILE
-    gx = world_to_grid_idx(wx, ox[:, None, None], res)
-    gy = world_to_grid_idx(wy, oy[:, None, None], res)
-    inb = (gx >= 0) & (gx < G) & (gy >= 0) & (gy < G) & keep
-    sx = gx - sox[:, None, None] + h
-    sy = gy - soy[:, None, None] + ROW_TILE
-    ok = (inb & (sx >= 0) & (sx < Cpad) & (sy >= 0) & (sy < rows)).reshape(
-        N, -1
-    )
-    sy = jnp.where(ok, sy.reshape(N, -1), -1).astype(jnp.int32)
-    sx = jnp.where(ok, sx.reshape(N, -1), 0).astype(jnp.int32)
-    sy, sx, m_used = dedup_scatter_cells(sy, sx, ok, Cpad)
-    occ = scatter_occupancy_pallas(sy, sx, m_used,
-                                   rows=rows, Cpad=Cpad,
-                                   interpret=interpret)
-    # smear must run at full precision: the Gaussian taps quantize to
-    # floor(100 * tap) downstream, and bf16 tap rounding could cross an
-    # integer boundary
-    return occ.astype(dtype)
-
-
-def build_quantized_grid_fused(
-    wx, wy, keep, ox, oy, sox, soy, *, G, S, h, Cpad, res, taps,
-    interpret=False,
-):
-    """One-kernel grid build: scatter + smear + quantize + full-grid bounds
-    mask (pallas_kernels.build_grid_fused).  Semantically equal to
-    build_occupancy_padded -> smear -> quantize_grid -> (row_ok & col_ok)
-    masking; returns (N, S, S) bfloat16 quantized subgrids (integer values
-    in [0, 100], exact in bf16)."""
-    from yag_slam_tpu.matching.pallas_kernels import build_grid_fused
-
-    N = wx.shape[0]
+    W = S + 2 * h
     gx = world_to_grid_idx(wx, ox[:, None, None], res)
     gy = world_to_grid_idx(wy, oy[:, None, None], res)
     inb = (gx >= 0) & (gx < G) & (gy >= 0) & (gy < G) & keep
     sx = gx - sox[:, None, None] + h
     sy = gy - soy[:, None, None] + h
-    # scratch rows [h, S+h) / cols [h, S+h) hold the subgrid; anything the
-    # caller's subgrid selection missed is predicated away (sy = -1)
-    ok = (inb & (sx >= 0) & (sx < Cpad) & (sy >= 0)
-          & (sy < S + 2 * h)).reshape(N, -1)
-    sy = jnp.where(ok, sy.reshape(N, -1), -1).astype(jnp.int32)
-    sx = jnp.where(ok, sx.reshape(N, -1), 0).astype(jnp.int32)
-    sy, sx, m_used = dedup_scatter_cells(sy, sx, ok, Cpad)
-    lim = jnp.stack(
-        [G - soy.astype(jnp.int32), G - sox.astype(jnp.int32)], axis=1
+    ins = (sx >= 0) & (sx < W) & (sy >= 0) & (sy < W)
+    plane = W * W
+    b_idx = jnp.arange(N, dtype=jnp.int32)[:, None, None]
+    lin = jnp.where(inb & ins, b_idx * plane + sy * W + sx, N * plane)
+    occ = (
+        jnp.zeros(N * plane + 1, dtype=dtype)
+        .at[lin.ravel()]
+        .max(jnp.ones(lin.size, dtype=dtype))
     )
-    return build_grid_fused(sy, sx, lim, m_used,
-                            S=S, h=h, taps=taps, Cpad=Cpad,
-                            interpret=interpret)
+    return occ[: N * plane].reshape(N, W, W)
 
 
-def build_quantized_grid_strip(
-    wx, wy, keep, ox, oy, sox, soy, *, G, S, h, Cpad, res, taps,
-    pallas_scatter=True, interpret=False,
-):
-    """Two-kernel grid build for subgrids too big for the fully-fused
-    kernel's VMEM-resident occupancy scratch: scatter (Pallas per-job VMEM
-    stores, or XLA scatter-max when even that scratch won't fit) -> strip
-    smear + quantize + full-grid bounds mask (smear_quantize_pallas, whose
-    per-program VMEM is O(ROW_TILE * Cpad) and therefore compiles at any
-    S).  One HBM round trip between the stages — ~2 * S^2 bf16 bytes, tens
-    of microseconds at S=2048 — versus the three round trips of the staged
-    path it replaces.  Semantically equal to build_occupancy_padded ->
-    smear -> quantize_grid -> (row_ok & col_ok) masking; returns (N, S, S)
-    bfloat16 quantized subgrids (integer values in [0, 100], exact in
-    bf16)."""
-    from yag_slam_tpu.matching.pallas_kernels import smear_quantize_pallas
+def smear_grid(occ_padded, *, h: int, S: int, taps: tuple):
+    """Separable weighted max-dilation of a halo-padded occupancy batch:
+    (N, S + 2h, S + 2h) -> (N, S, S), a shifted-max chain along columns,
+    then along rows."""
+    k = jnp.asarray(np.array(taps), dtype=occ_padded.dtype)
+    acc = None
+    for d in range(2 * h + 1):
+        t = k[d] * jax.lax.slice_in_dim(occ_padded, d, d + S, axis=2)
+        acc = t if acc is None else jnp.maximum(acc, t)
+    out = None
+    for d in range(2 * h + 1):
+        t = k[d] * jax.lax.slice_in_dim(acc, d, d + S, axis=1)
+        out = t if out is None else jnp.maximum(out, t)
+    return out
 
-    build = build_occupancy_pallas if pallas_scatter else build_occupancy_padded
-    occ = build(
-        wx, wy, keep, ox, oy, sox, soy,
-        G=G, S=S, h=h, Cpad=Cpad, res=res, dtype=jnp.bfloat16,
-        **(dict(interpret=interpret) if pallas_scatter else {}),
-    )
-    lim = jnp.stack(
-        [G - soy.astype(jnp.int32), G - sox.astype(jnp.int32)], axis=1
-    )
-    return smear_quantize_pallas(occ, lim, S=S, h=h, taps=taps,
-                                 interpret=interpret)
+
+def mask_past_grid(q, sox, soy, G):
+    """Zero subgrid cells whose full-grid index is >= G.
+
+    When a job's subgrid overhangs the full grid's high edge (S > G, or
+    sox + S > G in a mixed-size batch), smear spreads in-grid occupancy
+    into cells the reference's bounds check never reads
+    (reference yag_slam/helpers.py:139-142).  The element scorer
+    masks those reads per gather; the window scorer reads the grid raw, so
+    the build zeroes them once.  The low edge needs no mask (sox, soy >=
+    0)."""
+    lane = jnp.arange(q.shape[-1], dtype=jnp.int32)
+    col_ok = (lane[None, :] + sox[:, None]) < G
+    row_ok = (lane[None, :] + soy[:, None]) < G
+    return q * (row_ok[:, :, None] & col_ok[:, None, :]).astype(q.dtype)
+
+
+def build_quantized_subgrids(wx, wy, keep, ox, oy, sox, soy, *, G, S, h, res,
+                             taps, dtype):
+    """The batched grid build: scatter -> separable max-smear ->
+    floor(100 x) -> full-grid bounds mask.  Returns (quantized (N, S, S),
+    smeared (N, S, S)); the unquantized grid only survives when a caller
+    keeps it (the opt-in meta path)."""
+    occ = build_occupancy_padded(wx, wy, keep, ox, oy, sox, soy,
+                                 G=G, S=S, h=h, res=res, dtype=dtype)
+    cgrid = smear_grid(occ, h=h, S=S, taps=taps)
+    return mask_past_grid(quantize_grid(cgrid), sox, soy, G), cgrid
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +395,7 @@ def score_lattice(
 
 
 def score_lattice_batched(
-    qgrid_flat,  # (N, S*S + 1) — per-job quantized subgrids + sentinel
+    qgrid2d,     # (N, S, S) quantized subgrids
     pts_x,       # (N, P)
     pts_y,
     n_pts,       # (N,)
@@ -512,18 +416,17 @@ def score_lattice_batched(
 ):
     """Natively batched lattice scoring.
 
-    Same semantics as :func:`score_lattice` with a leading job axis, but
-    the grid lookup is ONE flat gather with globally-offset indices —
-    `vmap` of a gather with per-lane sources lowers to a serialized
-    batched-gather on TPU (measured 800 ms for a 16-job batch that takes
-    ~10 ms this way).
+    Same semantics as :func:`score_lattice` with a leading job axis; the
+    grid lookup is ONE flat gather with globally-offset indices into the
+    stacked per-job grids, and reads outside a job's subgrid or the full
+    grid take an out-of-range index that the gather fills with 0.
 
     Returns (out, xvals, yvals, tvals) with leading job axis.
     """
     NX, NY, NT = spec
-    N = qgrid_flat.shape[0]
+    N, S, _ = qgrid2d.shape
+    assert S == sub_size, (S, sub_size)
     G = grid_size
-    S = sub_size
 
     ar_x = jnp.arange(NX, dtype=dtype)
     xvals = (cx - xy_size)[:, None] + ar_x[None, :] * xy_res           # (N, NX)
@@ -548,13 +451,14 @@ def score_lattice_batched(
     ok_x = (gx >= 0) & (gx < G) & (sgx >= 0) & (sgx < S)
     ok_y = (gy >= 0) & (gy < G) & (sgy >= 0) & (sgy < S)
 
-    row = S * S + 1
-    base = (jnp.arange(N, dtype=jnp.int32) * row)[:, None, None, None, None]
-    lin = sgy[:, None, :, :, :] * S + sgx[:, :, None, :, :]
+    base = (jnp.arange(N, dtype=jnp.int32) * (S * S))[:, None, None, None,
+                                                      None]
     lin = jnp.where(
-        ok_x[:, :, None] & ok_y[:, None, :], lin, S * S
-    ) + base  # (N, NX, NY, NT, P)
-    vals = jnp.take(qgrid_flat.ravel(), lin, mode="clip")
+        ok_x[:, :, None] & ok_y[:, None, :],
+        sgy[:, None, :, :, :] * S + sgx[:, :, None, :, :] + base,
+        N * S * S,
+    )  # (N, NX, NY, NT, P)
+    vals = jnp.take(qgrid2d.reshape(-1), lin, mode="fill", fill_value=0)
     raw = jnp.sum(vals, axis=-1)  # (N, NX, NY, NT)
 
     if penalize:
@@ -636,16 +540,13 @@ def score_lattice_patch_batched(
     ang_var_penalty: float = 1.0,
     karto_penalties: tuple | None = None,
 ):
-    """Lattice scoring via per-point window gathers (the TPU fast path).
+    """Lattice scoring via per-point window gathers.
 
     Same response formula as :func:`score_lattice_batched`, restructured
-    around TPU memory behavior: element gathers serialize on the TPU
-    vector unit (~4-20 ns/element), so instead of one (N,NX,NY,NT,P)
-    element gather this gathers ONE contiguous (WINY, WINX) window per
-    (job, theta, point) — the grid cells a point can touch across the
-    whole xy lattice — then reduces over points and subsamples the
-    lattice stride.  Measured ~4.7x faster at the reference's default
-    coarse lattice (25x25x10, P=512, N=16).
+    around contiguous reads: instead of one (N,NX,NY,NT,P) element gather
+    this gathers ONE contiguous (WINY, WINX) window per (job, theta,
+    point) — the grid cells a point can touch across the whole xy lattice
+    — then reduces over points and subsamples the lattice stride.
 
     Exactness notes:
 
@@ -668,9 +569,8 @@ def score_lattice_patch_batched(
       path this function has no per-read (gx < G) mask.  The matcher
       zeroes them at q2d build.
     - Memory: the window gather produces a logical
-      (N, NT, P, WINY, WINX) intermediate (~2e8 f32 at the default
-      coarse lattice) that XLA fuses into the point-sum reduction on
-      TPU; peak memory relies on that fusion.  If a backend/shape combo
+      (N, NT, P, WINY, WINX) intermediate that XLA fuses into the
+      point-sum reduction; peak memory relies on that fusion.  If a backend/shape combo
       ever breaks the fusion the fix is chunking the point axis
       (lax.map over P blocks), not a smaller window.
     """
@@ -730,273 +630,6 @@ def score_lattice_patch_batched(
     ps = jnp.sum(patches, axis=2)                 # (N, NT, WINY, WINX)
     raw = ps[:, :, ::stride, ::stride]            # (N, NT, NY, NX)
     raw = raw.transpose(0, 3, 2, 1)               # (N, NX, NY, NT)
-
-    if penalize:
-        penalty = _lattice_penalty(
-            xvals, yvals, tvals, ct, ox, oy, grid_size=G, grid_res=grid_res,
-            dist_var_penalty=dist_var_penalty, ang_var_penalty=ang_var_penalty,
-            karto=karto_penalties, cx=cx, cy=cy,
-        )
-    else:
-        penalty = jnp.ones((), dtype=dtype)
-
-    out = raw.astype(dtype) / n_pts[:, None, None, None] * penalty / 100.0
-    return out, xvals, yvals, tvals
-
-
-def vmem_score_layout(S: int, spec: LatticeSpec, stride: int):
-    """Static layout parameters for the VMEM window-sum scorer (see
-    pallas_kernels.score_windows_pallas).  Returns (ROWS, ROWS_PAD, R, L,
-    q_stack_bytes)."""
-    NX, NY, NT = spec
-    if stride == 2:
-        # BOTH strides fold into the layout: lanes split into even/odd
-        # phases (as before) and rows too, so a window's NY strided rows
-        # become NY consecutive rows of one of 4 (row-phase, lane-phase)
-        # blocks — the kernel's per-point aligned load shrinks from
-        # (round8(2*NY-1) + 8, 256) to (round8(NY) + 8, 256), ~37% less
-        # volume at the default coarse lattice.
-        ROWS = NY
-        ROWS_PAD = ((ROWS + 7) // 8) * 8
-        Sh = S // 2
-        # +8 rows / +256 lanes absorb the kernel's aligned-load over-read
-        R = Sh + 2 * ROWS_PAD + 8          # rows per phase block
-        L = ((Sh + 384 + 127) // 128) * 128
-        q_bytes = 4 * R * L * 2
-    else:
-        ROWS = NY
-        ROWS_PAD = ((ROWS + 7) // 8) * 8
-        R = S + 2 * ROWS_PAD + 8
-        L = ((S + 384 + 127) // 128) * 128
-        q_bytes = R * L * 2
-    return ROWS, ROWS_PAD, R, L, q_bytes
-
-
-def score_lattice_vmem_batched(
-    qgrid2d,     # (N, S, S) quantized subgrids (already full-grid masked)
-    pts_x,       # (N, P)
-    pts_y,
-    n_pts,       # (N,)
-    cx, cy, ct,  # (N,)
-    ox, oy,      # (N,)
-    sox, soy,    # (N,)
-    *,
-    spec: LatticeSpec,
-    xy_size, xy_res, ang_size, ang_res,
-    grid_size: int,
-    grid_res: float,
-    sub_size: int,
-    penalize: bool,
-    dtype,
-    dist_var_penalty: float = 0.5,
-    ang_var_penalty: float = 1.0,
-    karto_penalties: tuple | None = None,
-    interpret: bool = False,
-    hybrid: bool = True,
-):
-    """Lattice scoring via the VMEM-resident Pallas window-sum kernels
-    (the TPU fast path).  Index math is identical to
-    :func:`score_lattice_patch_batched` (round once at the lattice
-    origin, walk integer strides), so the paths agree cell-for-cell;
-    values are integers <= 100 so the bf16 grid + f32 accumulation are
-    exact.
-
-    hybrid=True uses pallas_kernels.score_windows_hybrid_pallas (rowsel
-    matmul on the MXU + lane roll — the fast kernel); hybrid=False keeps
-    the original double-roll kernel (score_windows_pallas).  Both share
-    this producer's phase-split layout.
-
-    Supports stride = xy_res/grid_res in {1, 2} and NX <= 128; callers
-    gate on :func:`vmem_score_layout` for the VMEM budget.
-    """
-    from yag_slam_tpu.matching.pallas_kernels import (
-        score_windows_hybrid_pallas, score_windows_pallas)
-
-    NX, NY, NT = spec
-    N, S, _ = qgrid2d.shape
-    G = grid_size
-    stride = int(round(xy_res / grid_res))
-    assert stride in (1, 2), stride
-    assert NX <= 128, NX
-    ROWS, ROWS_PAD, R, L, _ = vmem_score_layout(S, spec, stride)
-
-    ar_x = jnp.arange(NX, dtype=dtype)
-    xvals = (cx - xy_size)[:, None] + ar_x[None, :] * xy_res
-    yvals = (cy - xy_size)[:, None] + jnp.arange(NY, dtype=dtype)[None] * xy_res
-    tvals = (ct - ang_size)[:, None] + jnp.arange(NT, dtype=dtype)[None] * ang_res
-
-    c, s = jnp.cos(tvals), jnp.sin(tvals)                       # (N, NT)
-    rx = c[:, :, None] * pts_x[:, None, :] - s[:, :, None] * pts_y[:, None, :]
-    ry = s[:, :, None] * pts_x[:, None, :] + c[:, :, None] * pts_y[:, None, :]
-
-    gx0 = world_to_grid_idx(
-        xvals[:, 0, None, None] + rx, ox[:, None, None], grid_res
-    )  # (N, NT, P)
-    gy0 = world_to_grid_idx(
-        yvals[:, 0, None, None] + ry, oy[:, None, None], grid_res
-    )
-    sgx0 = gx0 - sox[:, None, None]
-    sgy0 = gy0 - soy[:, None, None]
-
-    q16 = qgrid2d.astype(jnp.bfloat16)
-    if stride == 2:
-        # fold BOTH strides into the layout (vmem_score_layout): rows and
-        # lanes each split into even/odd phases, stacked as 4 blocks in
-        # (lane-phase-major, row-phase) order; the window's strided reads
-        # become NY consecutive rows x NX consecutive lanes of one block.
-        # Phases come from the UNclamped subgrid index ((-3) & 1 == 1, >>
-        # floors), so negative starts keep exact row/lane identity; the
-        # clamp lands out-of-range windows in the per-block zero margins.
-        Sh = S // 2
-        px = sgx0 & 1
-        py = sgy0 & 1
-        xh0 = sgx0 >> 1
-        yh0 = sgy0 >> 1
-        col0 = jnp.clip(xh0, -128, Sh) + 128
-        y0 = jnp.clip(yh0, -ROWS_PAD, Sh) + ROWS_PAD
-        pad_r = L - Sh - 128
-        blocks = []
-        for px_sel in (0, 1):
-            lanes = q16[:, :, px_sel::2]
-            for py_sel in (0, 1):
-                blk = lanes[:, py_sel::2, :]                 # (N, Sh, Sh)
-                blk = jnp.pad(
-                    blk,
-                    ((0, 0), (ROWS_PAD, ROWS_PAD + 8), (128, pad_r)),
-                )                                            # (N, R, L)
-                blocks.append(blk)
-        q_stack = jnp.concatenate(blocks, axis=1)            # (N, 4R, L)
-        row0 = (px * 2 + py) * R + y0
-    else:
-        # clamp into the zero margins (float->int32 saturates for _FAR
-        # lanes, so clip before any arithmetic)
-        y0 = jnp.clip(sgy0, -ROWS_PAD, S) + ROWS_PAD
-        rows_padded = jnp.pad(
-            q16, ((0, 0), (ROWS_PAD, ROWS_PAD + 8), (0, 0))
-        )
-        pad_r = L - S - 128
-        q_stack = jnp.pad(rows_padded, ((0, 0), (0, 0), (128, pad_r)))
-        col0 = jnp.clip(sgx0, -128, S) + 128
-        row0 = y0
-
-    # with the strides folded into the layout, both kernels walk the
-    # window at unit stride
-    n_int = jnp.round(n_pts).astype(jnp.int32)
-    if hybrid:
-        NYPAD = ((NY + 15) // 16) * 16
-        acc = score_windows_hybrid_pallas(
-            q_stack, row0.astype(jnp.int32), col0.astype(jnp.int32), n_int,
-            BR=ROWS_PAD + 8, NYPAD=NYPAD, stride=1, interpret=interpret,
-        )                                                    # (N, NT, NYPAD, 128)
-    else:
-        acc = score_windows_pallas(
-            q_stack, row0.astype(jnp.int32), col0.astype(jnp.int32), n_int,
-            ROWS_PAD=ROWS_PAD, interpret=interpret,
-        )                                                    # (N, NT, ROWS_PAD, 128)
-    raw = acc[:, :, :NY, :NX]                                # (N, NT, NY, NX)
-    raw = raw.transpose(0, 3, 2, 1)                          # (N, NX, NY, NT)
-
-    if penalize:
-        penalty = _lattice_penalty(
-            xvals, yvals, tvals, ct, ox, oy, grid_size=G, grid_res=grid_res,
-            dist_var_penalty=dist_var_penalty, ang_var_penalty=ang_var_penalty,
-            karto=karto_penalties, cx=cx, cy=cy,
-        )
-    else:
-        penalty = jnp.ones((), dtype=dtype)
-
-    out = raw.astype(dtype) / n_pts[:, None, None, None] * penalty / 100.0
-    return out, xvals, yvals, tvals
-
-
-def mxu_score_layout(S: int, spec: LatticeSpec, stride: int):
-    """Static layout parameters for the MXU window-sum scorer (see
-    pallas_kernels.score_windows_mxu_pallas).  Returns (BR, NYPAD, MROW,
-    R, L, q_stack_bytes)."""
-    NX, NY, NT = spec
-    WINY = stride * (NY - 1) + 1
-    # aligned block load: up to 7 rows of misalignment + the window rows
-    BR = ((WINY + 8 + 7) // 8) * 8
-    NYPAD = ((NY + 15) // 16) * 16       # bf16 sublane tile
-    MROW = ((WINY + 7) // 8) * 8 + 8     # top zero margin (clamped reads)
-    R = MROW + S + BR                    # bottom margin = one block span
-    L = ((128 + S + 256 + 127) // 128) * 128
-    return BR, NYPAD, MROW, R, L, R * L * 2
-
-
-def score_lattice_mxu_batched(
-    qgrid2d,     # (N, S, S) quantized subgrids (already full-grid masked)
-    pts_x,       # (N, P)
-    pts_y,
-    n_pts,       # (N,)
-    cx, cy, ct,  # (N,)
-    ox, oy,      # (N,)
-    sox, soy,    # (N,)
-    *,
-    spec: LatticeSpec,
-    xy_size, xy_res, ang_size, ang_res,
-    grid_size: int,
-    grid_res: float,
-    sub_size: int,
-    penalize: bool,
-    dtype,
-    dist_var_penalty: float = 0.5,
-    ang_var_penalty: float = 1.0,
-    karto_penalties: tuple | None = None,
-    interpret: bool = False,
-):
-    """Lattice scoring via the MXU one-hot-contraction Pallas kernel (the
-    TPU fast path; pallas_kernels.score_windows_mxu_pallas documents the
-    cost model).  Index math matches :func:`score_lattice_patch_batched`
-    (round once at the lattice origin, walk integer strides); the stride
-    is folded into the selection matmuls, so no phase-split layout and any
-    integer stride with WINX <= 128 works.  Values are integers <= 100,
-    exact through the bf16 grid / bf16 selectors / f32 accumulation.
-    """
-    from yag_slam_tpu.matching.pallas_kernels import score_windows_mxu_pallas
-
-    NX, NY, NT = spec
-    N, S, _ = qgrid2d.shape
-    G = grid_size
-    stride = int(round(xy_res / grid_res))
-    WINX = stride * (NX - 1) + 1
-    WINY = stride * (NY - 1) + 1
-    assert WINX <= 128 and NX <= 128, (spec, stride)
-    BR, NYPAD, MROW, R, L, _ = mxu_score_layout(S, spec, stride)
-
-    ar_x = jnp.arange(NX, dtype=dtype)
-    xvals = (cx - xy_size)[:, None] + ar_x[None, :] * xy_res
-    yvals = (cy - xy_size)[:, None] + jnp.arange(NY, dtype=dtype)[None] * xy_res
-    tvals = (ct - ang_size)[:, None] + jnp.arange(NT, dtype=dtype)[None] * ang_res
-
-    c, s = jnp.cos(tvals), jnp.sin(tvals)                       # (N, NT)
-    rx = c[:, :, None] * pts_x[:, None, :] - s[:, :, None] * pts_y[:, None, :]
-    ry = s[:, :, None] * pts_x[:, None, :] + c[:, :, None] * pts_y[:, None, :]
-
-    gx0 = world_to_grid_idx(
-        xvals[:, 0, None, None] + rx, ox[:, None, None], grid_res
-    )  # (N, NT, P)
-    gy0 = world_to_grid_idx(
-        yvals[:, 0, None, None] + ry, oy[:, None, None], grid_res
-    )
-    sgx0 = gx0 - sox[:, None, None]
-    sgy0 = gy0 - soy[:, None, None]
-
-    # clamp into the zero margins (float->int32 saturates for _FAR lanes,
-    # so clip before any arithmetic)
-    row0 = jnp.clip(sgy0, -WINY, S) + MROW
-    col0 = jnp.clip(sgx0, -WINX, S) + 128
-
-    q16 = qgrid2d.astype(jnp.bfloat16)
-    q_stack = jnp.pad(q16, ((0, 0), (MROW, BR), (128, L - S - 128)))
-
-    acc = score_windows_mxu_pallas(
-        q_stack, row0.astype(jnp.int32), col0.astype(jnp.int32),
-        jnp.round(n_pts).astype(jnp.int32),
-        BR=BR, NYPAD=NYPAD, stride=stride, interpret=interpret,
-    )                                                        # (N, NT, NYPAD, 128)
-    raw = acc[:, :, :NY, :NX]                                # (N, NT, NY, NX)
-    raw = raw.transpose(0, 3, 2, 1)                          # (N, NX, NY, NT)
 
     if penalize:
         penalty = _lattice_penalty(

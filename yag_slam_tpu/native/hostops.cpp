@@ -1,7 +1,7 @@
 // Native host-side runtime ops.
 //
-// The TPU owns the compute path (grid build / lattice search / SPA run as
-// XLA/Pallas programs); what remains on the host per scan is preprocessing
+// The accelerator owns the compute path (grid build / lattice search / SPA
+// run as XLA programs); what remains on the host per scan is preprocessing
 // that the reference does in C++/numba (beam projection + compaction,
 // validation-run segmentation: /root/reference/yag_slam/helpers.py:58-68,
 // 298-329) and dataset parsing (the reference's loader is a `pass` stub,

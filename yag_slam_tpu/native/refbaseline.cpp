@@ -3,12 +3,12 @@
 // PURPOSE: an honest benchmark baseline.  The reference's hot path is
 // numba-compiled (prange over theta) or C++ (the karto_scanmatcher wheel);
 // neither is installable in this environment, so BENCH comparisons against
-// a numpy oracle flatter the TPU numbers.  This module re-implements the
+// a numpy oracle flatter the device numbers.  This module re-implements the
 // reference *algorithm* — same grid build, same per-pose scoring structure,
 // same reductions — as optimized multithreaded C++ (-O3, std::thread over
 // the theta axis exactly where the reference puts numba's prange,
 // /root/reference/yag_slam/helpers.py:156,191), so bench.py can measure the
-// TPU matcher against what the reference actually achieves on this host's
+// device matcher against what the reference actually achieves on this host's
 // CPU.
 //
 // Behavioral spec (all semantics, no code, from):
@@ -27,7 +27,7 @@
 //    (calloc: untouched pages stay free).
 //  - per-pose work recomputes the rounded world coordinate per point, as
 //    the reference's inner loop does; no integer-stride hoisting (that is
-//    the TPU matcher's optimization, not the reference's).
+//    the device matcher's optimization, not the reference's).
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>

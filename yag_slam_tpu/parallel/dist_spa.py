@@ -7,7 +7,7 @@ edge list over a mesh axis makes every reduction a collective:
 - **"cg" (default)** — matrix-free block-Jacobi-preconditioned CG: per LM
   iteration the rhs b, the block-diagonal preconditioner and every CG
   Hessian-vector product are assembled from the *local* edge shard and
-  `psum`-reduced over ICI.  Per-device memory is O(E/n_devices + N·3) —
+  `psum`-reduced over the mesh.  Per-device memory is O(E/n_devices + N·3) —
   no (3N, 3N) object ever exists (asserted by
   tests/test_parallel.py::test_dist_spa_no_dense_hessian) — so the graph
   size is bounded by pose storage, not by a dense factorization.  This is
@@ -18,7 +18,7 @@ edge list over a mesh axis makes every reduction a collective:
   memory is O(N^2).
 
 The reference has no distributed anything (SURVEY §2.3) — this is the
-"long-trajectory" scaling story for pod-scale lifelong mapping.
+"long-trajectory" scaling story for multi-device lifelong mapping.
 """
 from __future__ import annotations
 
@@ -51,8 +51,8 @@ def make_distributed_lm_run_cg(mesh, n_cap, max_iters, cg_iters, axis="dp",
     poses replicated, psum-reduced rhs/preconditioner/HVPs (see
     graphopt.spa._lm_candidate_cg).  mixed=True (default) runs the f32
     inner CG + f64 refinement step (graphopt.spa._lm_candidate_cg_mixed):
-    the per-CG-iteration psum moves f32 bytes over ICI and the HVPs run
-    at native rate, with one f64 psum per refinement step."""
+    the per-CG-iteration psum moves f32 bytes and the HVPs run at the f32
+    rate, with one f64 psum per refinement step."""
 
     body = partial(
         _lm_run_cg_impl,
@@ -167,9 +167,6 @@ class DistributedSPA:
         e_cap = _cap(max(e, n_dev))
         e_cap = ((e_cap + n_dev - 1) // n_dev) * n_dev
 
-        dtype = s.dtype or (
-            jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-        )
         poses = np.zeros((n_cap, 3))
         poses[:n] = np.asarray(s.poses)
         eidx = np.zeros((e_cap, 2), dtype=np.int32)
@@ -197,32 +194,36 @@ class DistributedSPA:
                 )
             self._programs[key] = prog
 
-        # explicit shardings so inputs land directly on their shards (and
-        # so host numpy values work under multi-process jax.distributed,
-        # where jit cannot infer a global placement for them)
-        from jax.sharding import NamedSharding
+        # f64 poses and costs on device, as in PoseGraphSolver.optimize: the
+        # mixed steps run f32 inner CG with f64 refinement
+        with jax.enable_x64(True):
+            dtype = s.dtype or jnp.float64
+            # explicit shardings so inputs land directly on their shards (and
+            # so host numpy values work under multi-process jax.distributed,
+            # where jit cannot infer a global placement for them)
+            from jax.sharding import NamedSharding
 
-        rep = NamedSharding(self.mesh, P())
-        shd = NamedSharding(self.mesh, P(self.axis))
-        common = (
-            jax.device_put(jnp.asarray(poses, dtype=dtype), rep),
-            jax.device_put(jnp.asarray(eidx), shd),
-            jax.device_put(jnp.asarray(means, dtype=dtype), shd),
-            jax.device_put(jnp.asarray(infos, dtype=dtype), shd),
-            jax.device_put(jnp.asarray(emask), shd),
-            jax.device_put(jnp.asarray(free), rep),
-            jax.device_put(jnp.asarray(s_lambda, dtype=dtype), rep),
-        )
-        if self.solver == "cg":
-            final, cost, iters = prog(
-                *common,
-                jax.device_put(jnp.asarray(conv_tol, dtype=dtype), rep),
-                jax.device_put(jnp.asarray(init_tol, dtype=dtype), rep),
+            rep = NamedSharding(self.mesh, P())
+            shd = NamedSharding(self.mesh, P(self.axis))
+            common = (
+                jax.device_put(jnp.asarray(poses, dtype=dtype), rep),
+                jax.device_put(jnp.asarray(eidx), shd),
+                jax.device_put(jnp.asarray(means, dtype=dtype), shd),
+                jax.device_put(jnp.asarray(infos, dtype=dtype), shd),
+                jax.device_put(jnp.asarray(emask), shd),
+                jax.device_put(jnp.asarray(free), rep),
+                jax.device_put(jnp.asarray(s_lambda, dtype=dtype), rep),
             )
-        else:
-            final, cost, iters = prog(
-                *common, jax.device_put(jnp.asarray(init_tol, dtype=dtype), rep)
-            )
+            if self.solver == "cg":
+                final, cost, iters = prog(
+                    *common,
+                    jax.device_put(jnp.asarray(conv_tol, dtype=dtype), rep),
+                    jax.device_put(jnp.asarray(init_tol, dtype=dtype), rep),
+                )
+            else:
+                final, cost, iters = prog(
+                    *common, jax.device_put(jnp.asarray(init_tol, dtype=dtype), rep)
+                )
         out = np.asarray(final[:n], dtype=np.float64)
         for i in range(n):
             s.poses[i] = [float(out[i, 0]), float(out[i, 1]), float(out[i, 2])]

@@ -1,9 +1,9 @@
 """Device-mesh helpers.
 
 The reference is strictly single-process (SURVEY §2.3: no distributed
-backend of any kind); the TPU build scales through `jax.sharding.Mesh` +
-`shard_map`, with collectives over ICI/DCN.  The natural parallel axes of
-this workload:
+backend of any kind); this build scales through `jax.sharding.Mesh` +
+`shard_map`, with XLA's collectives between devices.  The natural
+parallel axes of this workload:
 
 - **dp** (candidate-parallel): loop-closure chains / offline scan batches
   are embarrassingly parallel match jobs;
@@ -29,8 +29,8 @@ def default_mesh(n_devices=None, axis_name="dp"):
 
 
 def initialize_multihost(coordinator=None, num_processes=None, process_id=None):
-    """Initialize jax.distributed for multi-host pods (DCN + ICI).  On a
-    single host this is a no-op."""
+    """Initialize jax.distributed for a multi-process run.  With one
+    process this is a no-op."""
     if num_processes in (None, 1):
         return
     jax.distributed.initialize(

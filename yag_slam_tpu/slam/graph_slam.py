@@ -24,7 +24,6 @@ from __future__ import annotations
 import time
 import zlib
 
-import msgpack
 import numpy as np
 
 from yag_slam_tpu.core.config import default_config, default_config_loop
@@ -40,6 +39,7 @@ from yag_slam_tpu.graphopt.graph import (
 )
 from yag_slam_tpu.graphopt.spa import SPA2d
 from yag_slam_tpu.matching.matcher import CorrelativeScanMatcher
+from yag_slam_tpu.slam import msgpack_lite
 from yag_slam_tpu.slam.serde import _deserialize, _serialize
 
 
@@ -140,11 +140,11 @@ class GraphSlam:
         return out
 
     def binarize(self):
-        return zlib.compress(msgpack.packb(self.serialize()))
+        return zlib.compress(msgpack_lite.packb(self.serialize()))
 
     @classmethod
     def unbinarize(cls, blob):
-        return cls.deserialize(msgpack.unpackb(zlib.decompress(blob)))
+        return cls.deserialize(msgpack_lite.unpackb(zlib.decompress(blob)))
 
     def to_file(self, path):
         with open(path, "wb") as ff:

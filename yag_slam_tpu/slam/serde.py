@@ -1,4 +1,5 @@
-"""Portable serialization: ``___name``-tagged dicts → msgpack → zlib.
+"""Portable serialization: ``___name``-tagged dicts → msgpack → zlib
+(written by the built-in slam.msgpack_lite codec).
 
 Byte-compatible with the reference's registry-driven serializer
 (/root/reference/yag_slam/serde.py:25-95): same type tags, same field
@@ -34,7 +35,7 @@ def _serialize(obj):
     if n in _configs:
         d = {v: _serialize(getattr(obj, v)) for v in _configs[n].variables}
         if n == "ScanMatcherConfig":
-            # TPU-side extension fields (use_karto_penalties et al.) enter
+            # extension fields (use_karto_penalties et al.) enter
             # the checkpoint only when non-default, so the wire format
             # stays byte-identical to the reference's 11-key layout for
             # every reference-expressible config (core/config.py docstring)

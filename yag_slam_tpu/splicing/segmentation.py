@@ -16,6 +16,11 @@ import jax
 import jax.numpy as jnp
 
 
+# Full-f32 distance products: a reduced-precision matmul (TF32 on NVIDIA
+# GPUs) would move k-means assignments near Voronoi boundaries.
+_EXACT = jax.lax.Precision.HIGHEST
+
+
 @partial(jax.jit, static_argnames=("n_iters",))
 def _kmeans_iters(pts, valid, centers, *, n_iters: int):
     """pts (M, 2) float32, valid (M,), centers (K, 2) -> final centers and
@@ -24,7 +29,7 @@ def _kmeans_iters(pts, valid, centers, *, n_iters: int):
     def step(centers, _):
         d2 = (
             jnp.sum(pts**2, axis=1, keepdims=True)
-            - 2.0 * pts @ centers.T
+            - 2.0 * jnp.dot(pts, centers.T, precision=_EXACT)
             + jnp.sum(centers**2, axis=1)[None, :]
         )  # (M, K)
         assign = jnp.argmin(d2, axis=1)
@@ -40,7 +45,7 @@ def _kmeans_iters(pts, valid, centers, *, n_iters: int):
     centers, _ = jax.lax.scan(step, centers, None, length=n_iters)
     d2 = (
         jnp.sum(pts**2, axis=1, keepdims=True)
-        - 2.0 * pts @ centers.T
+        - 2.0 * jnp.dot(pts, centers.T, precision=_EXACT)
         + jnp.sum(centers**2, axis=1)[None, :]
     )
     return centers, jnp.argmin(d2, axis=1)
